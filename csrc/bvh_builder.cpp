@@ -8,7 +8,7 @@
 // partition, stable-sort median fallback) so both emit bit-identical
 // layouts — the snapshot harness depends on deterministic BVHs.
 //
-// Build: see csrc/Makefile -> libtpurt.so; loaded via ctypes with a Python
+// Build: see csrc/Makefile -> librtnative.so; loaded via ctypes with a Python
 // fallback (tpu_raytracing/native.py).
 
 #include <algorithm>

@@ -11,75 +11,15 @@ import pytest
 
 import jax.numpy as jnp
 
-import tpu_raytracing.ops.traverse as T
 from tpu_raytracing.device import compile_scene
-from tpu_raytracing.geometry import Mesh, Transform, TriangleMesh, v3, v4
-from tpu_raytracing.lights import PointLight
-from tpu_raytracing.materials import Diffuse
 from tpu_raytracing.ops.traverse import hit_details, intersect_scene
-from tpu_raytracing.scene import SceneBuilder
-from tpu_raytracing.scene.camera import Camera
-
-
-def _grid_mesh(n=4, size=1.0):
-    """Tessellated square on z=0: 2*n*n tris (>= INSTANCE_MIN_TRIS)."""
-    xs = np.linspace(-size / 2, size / 2, n + 1)
-    vx, vy = np.meshgrid(xs, xs)
-    verts = np.stack([vx.ravel(), vy.ravel(), np.zeros(vx.size)], axis=1)
-    tris = []
-    for j in range(n):
-        for i in range(n):
-            a = j * (n + 1) + i
-            b = a + 1
-            c = a + (n + 1)
-            d = c + 1
-            tris += [[a, b, d], [a, d, c]]
-    normals = np.tile(np.array([[0.0, 0.0, 1.0]]), (verts.shape[0], 1))
-    uvs = (verts[:, :2] / size) + 0.5
-    return Mesh(vertices=verts, tris=np.asarray(tris), normals=normals, uvs=uvs)
-
-
-_XFORMS = [
-    Transform.translate(np.array([-0.8, 0.0, -3.0])),
-    Transform.rotate(0.7, np.array([0.0, 1.0, 0.0])).compose(
-        Transform.translate(np.array([0.9, 0.2, -3.5]))
-    ),
-]
-
-
-def _build(shared: bool):
-    sb = SceneBuilder()
-    white = sb.add_constant_texture(v4(1, 1, 1, 1))
-    mat = sb.add_material(Diffuse(albedo=white))
-    mesh = _grid_mesh()
-    if shared:
-        from tpu_raytracing.scene import BasicPrimitive, TransformPrimitive
-
-        basic = sb.add_primitive(
-            BasicPrimitive(shape=TriangleMesh(mesh), material=mat,
-                           area_light=None)
-        )
-        for t in _XFORMS:
-            tp = sb.add_primitive(
-                TransformPrimitive(primitive=basic, transform=t)
-            )
-            sb.add_root_child(tp)
-    else:
-        for t in _XFORMS:
-            sb.add_shape_with_transform(TriangleMesh(mesh), mat, t)
-    sb.add_light(PointLight(position=v3(0, 2, 0), intensity=v3(20, 20, 20)))
-    sb.add_camera(
-        Camera.lookat_camera_perspective(
-            v3(0, 0, 0), v3(0, 0, -3), v3(0, 1, 0), False,
-            np.deg2rad(50.0), 160, 120,
-        )
-    )
-    return sb.build()
+from tpu_raytracing.scene.test_scenes import grid_pair_scene
 
 
 @pytest.fixture(scope="module")
 def pair():
-    return compile_scene(_build(True)), compile_scene(_build(False))
+    return (compile_scene(grid_pair_scene(shared=True)),
+            compile_scene(grid_pair_scene(shared=False)))
 
 
 def test_blas_built_once(pair):
@@ -146,26 +86,3 @@ def test_instanced_render_matches_baked(pair):
     img_b = render(ds_b, s).beauty
     mse = float(np.mean((img_i - img_b) ** 2))
     assert mse < 1e-6, mse
-
-
-def test_pallas_parity_on_instances(pair, monkeypatch):
-    """Lockstep kernel (interpret) agrees with the XLA stack walk."""
-    ds_i, _ = pair
-    rng = np.random.default_rng(9)
-    B = 1024
-    o = jnp.asarray(rng.normal(0, 0.3, (B, 3)).astype(np.float32))
-    d = rng.normal(0, 1, (B, 3)).astype(np.float32)
-    d[:, 2] -= 1.0
-    d /= np.linalg.norm(d, axis=1, keepdims=True)
-    d = jnp.asarray(d)
-    tmin = jnp.full(B, 1e-3)
-    tmax = jnp.full(B, np.inf)
-    monkeypatch.setenv("TPU_RT_PALLAS", "0")
-    t_s, p_s = intersect_scene(ds_i, o, d, tmin, tmax)
-    monkeypatch.setenv("TPU_RT_PALLAS", "1")
-    t_p, p_p = intersect_scene(ds_i, o, d, tmin, tmax)
-    np.testing.assert_array_equal(np.asarray(p_s), np.asarray(p_p))
-    both = np.asarray(p_s) >= 0
-    np.testing.assert_allclose(
-        np.asarray(t_p)[both], np.asarray(t_s)[both], rtol=1e-5
-    )

@@ -72,7 +72,7 @@ def test_settings_hash_order_independent():
     assert settings_hash(["-s", "2", "-l", "1"], "cpu") == settings_hash(
         ["-l", "1", "-s", "2"], "cpu"
     )
-    assert settings_hash(["-s", "2"], "cpu") != settings_hash(["-s", "2"], "tpu")
+    assert settings_hash(["-s", "2"], "cpu") != settings_hash(["-s", "2"], "gpu")
 
 
 def test_perf_history_roundtrip(tmp_path):

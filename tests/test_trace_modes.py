@@ -1,11 +1,12 @@
 """Bit-exactness across integrator scheduling modes.
 
-The mode combinations {sequential, path-regeneration} x {per-call
-sorts, per-bounce state sort} re-schedule the same per-(pixel, sample)
-estimates (RNG is counter-based). The sort knob is pure lane routing
-and must be BIT-IDENTICAL; regeneration builds a different graph whose
-fusions reassociate FMAs, so it matches to ULP-tight allclose only
-(reference contract: one image per settings, lib.rs:645).
+The mode combinations {sequential, path-regeneration} x {unsorted,
+per-bounce coherence sort} re-schedule the same per-(pixel, sample)
+estimates (RNG is counter-based). The coherence sort (forced on through
+backend.coherence_sort, which is off by default) is pure lane routing and
+must be BIT-IDENTICAL over the XLA walk; regeneration builds a different
+graph whose fusions reassociate FMAs, so it matches to ULP-tight allclose
+only (reference contract: one image per settings, lib.rs:645).
 """
 from __future__ import annotations
 
@@ -14,6 +15,7 @@ import pytest
 
 import jax.numpy as jnp
 
+from tpu_raytracing import backend
 from tpu_raytracing.device import compile_scene
 from tpu_raytracing.integrator.render import (
     StaticSettings, trace_radiance, trace_radiance_spp,
@@ -55,33 +57,22 @@ def _seq(ds, cfg, st, px, py, active=None):
     return np.asarray(acc), rays
 
 
-def _modes(monkeypatch, pallas: str, sort: str, regen_fn):
-    monkeypatch.setenv("TPU_RT_PALLAS", pallas)
-    monkeypatch.setenv("TPU_RT_BOUNCE_SORT", sort)
-    return regen_fn()
+def _sort(monkeypatch, on: bool):
+    monkeypatch.setattr(backend, "coherence_sort", lambda _ds: on)
 
 
 def test_modes_bit_identical(monkeypatch, scene_setup):
     ds, cfg, st = scene_setup
     px, py = _pixels()
 
-    # XLA-walk truth: agrees with the Pallas kernels only to
-    # FMA/op-order ULPs (traverse_pallas.py module docstring), so this
-    # is an allclose cross-check, not the bit-exact reference
-    monkeypatch.setenv("TPU_RT_PALLAS", "0")
-    xla, xla_rays = _seq(ds, cfg, st, px, py)
-    assert np.isfinite(xla).all() and (xla.max() > 0)
-
-    # bit-exact reference: pallas traversal, per-call sorts
-    monkeypatch.setenv("TPU_RT_PALLAS", "1")
-    monkeypatch.setenv("TPU_RT_BOUNCE_SORT", "0")
+    # bit-exact reference: the default schedule (no coherence sort)
+    _sort(monkeypatch, False)
     ref, ref_rays = _seq(ds, cfg, st, px, py)
-    np.testing.assert_allclose(xla, ref, rtol=1e-3, atol=1e-4)
-    assert ref_rays == xla_rays
+    assert np.isfinite(ref).all() and (ref.max() > 0)
 
-    # pallas traversal, per-bounce state sort (default: merged (B,19)
-    # permutation gather + scalar-carry cond, TPU_RT_JOIN_PERM=1)
-    monkeypatch.setenv("TPU_RT_BOUNCE_SORT", "1")
+    # per-bounce state sort (default: merged (B,19) permutation gather +
+    # scalar-carry cond, TPU_RT_JOIN_PERM=1)
+    _sort(monkeypatch, True)
     b, b_rays = _seq(ds, cfg, st, px, py)
     np.testing.assert_array_equal(ref, b)
     assert b_rays == ref_rays
@@ -104,11 +95,10 @@ def test_modes_bit_identical(monkeypatch, scene_setup):
     np.testing.assert_array_equal(b, ss)
     assert ss_rays == ref_rays
 
-    # NEE gate off (pre-round-4 shape: every NEE lane walks occluded()):
-    # the gate only skips walks whose contribution is exactly zero
-    # (cos==0 or pdf<=0 lanes), so the image must be BIT-identical;
-    # rays_traced counts actually-walked rays, so the ungated leg counts
-    # at least as many (ADVICE.md round 3)
+    # NEE gate off (every NEE lane walks occluded()): the gate only
+    # skips walks whose contribution is exactly zero (cos==0 or pdf<=0
+    # lanes), so the image must be BIT-identical; rays_traced counts
+    # actually-walked rays, so the ungated leg counts at least as many
     monkeypatch.setenv("TPU_RT_NEE_GATE", "0")
     ng, ng_rays = _seq(ds, cfg, st, px, py)
     monkeypatch.delenv("TPU_RT_NEE_GATE")
@@ -119,7 +109,7 @@ def test_modes_bit_identical(monkeypatch, scene_setup):
     # estimates, but its different graph fuses differently; near-tangent
     # sphere hits amplify those FMA ULPs by ~1/sqrt(disc), so agreement
     # is allclose at ~1e-3, NOT bit-exact (rays counts ARE exact)
-    monkeypatch.setenv("TPU_RT_BOUNCE_SORT", "0")
+    _sort(monkeypatch, False)
     r0, r0_rays = trace_radiance_spp(ds, cfg, st, px, py, 0, SPP)
     np.testing.assert_allclose(ref, np.asarray(r0), rtol=2e-3, atol=1e-3)
     assert int(r0_rays) == ref_rays
@@ -127,7 +117,7 @@ def test_modes_bit_identical(monkeypatch, scene_setup):
     # regen + per-bounce state sort (pixel identity, sample and depth
     # counters, differentials all cross the packed permutation): must be
     # bit-exact vs regen-without-sort — the permutation is pure routing
-    monkeypatch.setenv("TPU_RT_BOUNCE_SORT", "1")
+    _sort(monkeypatch, True)
     r1, r1_rays = trace_radiance_spp(ds, cfg, st, px, py, 0, SPP)
     np.testing.assert_array_equal(np.asarray(r0), np.asarray(r1))
     assert int(r1_rays) == ref_rays
@@ -140,11 +130,10 @@ def test_regen_sort_respects_active_mask(monkeypatch, scene_setup):
     act[::3] = False
     act_j = jnp.asarray(act)
 
-    monkeypatch.setenv("TPU_RT_PALLAS", "1")
-    monkeypatch.setenv("TPU_RT_BOUNCE_SORT", "0")
+    _sort(monkeypatch, False)
     ref, ref_rays = _seq(ds, cfg, st, px, py, active=act_j)
 
-    monkeypatch.setenv("TPU_RT_BOUNCE_SORT", "1")
+    _sort(monkeypatch, True)
     r1, r1_rays = trace_radiance_spp(ds, cfg, st, px, py, 0, SPP,
                                      active=act_j)
     r1 = np.asarray(r1)
@@ -158,16 +147,15 @@ def test_regen_sort_respects_active_mask(monkeypatch, scene_setup):
 def test_nee_stack_bit_identical(monkeypatch, scene_setup):
     """NEE shadow-walk stacking (TPU_RT_NEE_STACK): the n_s area-light
     shadow walks per bounce run as ONE occluded() call over a lane-major
-    interleaved (n_s*B) batch. Stacking only regroups lockstep tiles —
-    per-lane walk results are tile-grouping-invariant (the chunk-size
-    invariance property) — so image AND ray count must be BIT-identical
-    to the sequential per-sample calls."""
+    interleaved (n_s*B) batch. Stacking only regroups lanes — per-lane
+    walk results are grouping-invariant (the chunk-size invariance
+    property) — so image AND ray count must be BIT-identical to the
+    sequential per-sample calls."""
     ds, cfg, st = scene_setup
     st = st._replace(light_sample_count=3, max_ray_depth=3)
     px, py = _pixels()
 
-    monkeypatch.setenv("TPU_RT_PALLAS", "1")
-    monkeypatch.setenv("TPU_RT_BOUNCE_SORT", "1")
+    _sort(monkeypatch, True)
     monkeypatch.setenv("TPU_RT_NEE_STACK", "0")
     off, off_rays = trace_radiance(ds, cfg, st, px, py, 0)
     off = np.asarray(off)
@@ -177,14 +165,6 @@ def test_nee_stack_bit_identical(monkeypatch, scene_setup):
     on, on_rays = trace_radiance(ds, cfg, st, px, py, 0)
     np.testing.assert_array_equal(off, np.asarray(on))
     assert int(on_rays) == int(off_rays)
-
-    # VMEM-capped grouping (TPU_RT_NEE_STACK_LANES): with B=256 lanes a
-    # 512-lane cap splits the n_s=3 stack into groups of 2+1 occluded()
-    # calls — grouping is a further tile regroup, so bits must not move
-    monkeypatch.setenv("TPU_RT_NEE_STACK_LANES", "512")
-    grp, grp_rays = trace_radiance(ds, cfg, st, px, py, 0)
-    np.testing.assert_array_equal(off, np.asarray(grp))
-    assert int(grp_rays) == int(off_rays)
 
 
 def test_ladder_bit_identical(monkeypatch, scene_setup):
@@ -201,8 +181,7 @@ def test_ladder_bit_identical(monkeypatch, scene_setup):
     py = jnp.asarray(
         rng.integers(0, ds.meta.height, 2048).astype(np.uint32))
 
-    monkeypatch.setenv("TPU_RT_PALLAS", "1")
-    monkeypatch.setenv("TPU_RT_BOUNCE_SORT", "1")
+    _sort(monkeypatch, True)
     monkeypatch.setenv("TPU_RT_LADDER", "0")
     off, off_rays = trace_radiance(ds, cfg, st, px, py, 0)
     off = np.asarray(off)

@@ -1,8 +1,9 @@
-"""tpu-raytracing: a TPU-native physically-based wavefront path tracer.
+"""tpu-raytracing: a physically-based wavefront path tracer in JAX.
 
-Built from scratch in JAX/XLA/Pallas with the capabilities of the reference
-renderer `buggy213/opencl-raytracing` (PBRT-inspired Rust + Embree + OptiX).
-See SURVEY.md for the structural map of the reference this framework covers.
+Built from scratch in JAX/XLA (with a CUDA BVH walk for NVIDIA GPUs) with the
+capabilities of the reference renderer `buggy213/opencl-raytracing`
+(PBRT-inspired Rust + Embree + OptiX). See SURVEY.md for the structural map of
+the reference this framework covers.
 
 Layering (host -> device):
   geometry/ scene/   host-side scene description (numpy f32) + loaders

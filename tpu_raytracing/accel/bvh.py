@@ -1,16 +1,12 @@
-"""Binned-SAH BVH build (host) -> skip-link linear layout (device).
+"""Binned-SAH BVH build (host) -> preorder linear layout with skip links.
 
-TPU-native replacement for the reference's Embree-built BVH2 + linearizers
-(raytracing/src/accel/bvh2.rs): instead of per-ray stack traversal (hostile to
-a vector machine), nodes are emitted in depth-first order with *skip links*,
-so device traversal is a stackless loop over a single per-ray node pointer:
-
-    hit AABB   -> next = node + 1            (descend into first child)
-    miss/leaf  -> next = skip[node]          (jump over the subtree)
-
-This trades near-child-first ordering for a state-free SIMD loop; closest-hit
-pruning (`t_entry > t_best` skip) keeps the cost acceptable. A C++ builder can
-replace this numpy one behind the same LinearBVH contract.
+Replacement for the reference's Embree-built BVH2 + linearizers
+(raytracing/src/accel/bvh2.rs): nodes are emitted in depth-first order with
+*skip links* (skip[node] = the first node after node's subtree), so the left
+child of internal node i is i + 1 and its right child is skip[i + 1].
+device/scene_buffers.py turns this into the child-pair rows the device
+walks read. A C++ builder replaces this numpy one behind the same
+LinearBVH contract.
 
 The left child is biased to the lower half along the split axis, so front-to-
 back coherence is recovered per scene orientation on average.
@@ -22,13 +18,12 @@ from dataclasses import dataclass
 import numpy as np
 
 F = np.float32
-# Max prims per leaf. The node encodings pack the count in 3 bits
-# ((first<<3)|count in the skip-link/pair/quad layouts), so 7 is the
-# ceiling without an encoding change. Read once at import so the builder
-# and every kernel's static leaf unroll agree; default 4 keeps the
-# blessed snapshots' BVHs byte-identical. TPU_RT_BVH_LEAF=5..7 trades
-# deeper leaves for fewer internal nodes (the lockstep tile union pays
-# per NODE, docs/PERF_LOG.md round 3).
+# Max prims per leaf. The child-pair meta packs the count in 3 bits
+# ((first<<3)|count), so 7 is the ceiling without an encoding change.
+# Read once at import so the builder and the XLA walk's static leaf
+# unroll agree; default 4 keeps the blessed snapshots' BVHs
+# byte-identical. TPU_RT_BVH_LEAF=5..7 trades larger leaves for fewer
+# internal nodes.
 import os as _os
 
 MAX_LEAF_SIZE = min(7, max(1, int(_os.environ.get("TPU_RT_BVH_LEAF", "4"))))

@@ -47,9 +47,9 @@ def bundle(output_dir: Path) -> Path:
     (output_dir / "csrc").mkdir()
     shutil.copy(csrc / "Makefile", output_dir / "csrc/Makefile")
     shutil.copy(csrc / "bvh_builder.cpp", output_dir / "csrc/bvh_builder.cpp")
-    so = csrc / "libtpurt.so"
+    so = csrc / "librtnative.so"
     if so.exists():
-        shutil.copy(so, output_dir / "csrc/libtpurt.so")
+        shutil.copy(so, output_dir / "csrc/librtnative.so")
     for extra in ("bench.py", "__graft_entry__.py", "README.md"):
         src = REPO / extra
         if src.exists():

@@ -130,7 +130,13 @@ class Image:
             )
             return Image(data)
 
-        from PIL import Image as PILImage
+        try:
+            from PIL import Image as PILImage
+        except ImportError as e:
+            raise ImportError(
+                "decoding PNG/JPEG textures needs Pillow (pip install "
+                "pillow); EXR textures and everything else do not"
+            ) from e
 
         img = PILImage.open(io.BytesIO(raw))
         mode = img.mode

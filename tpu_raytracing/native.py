@@ -1,4 +1,4 @@
-"""ctypes bindings for the native runtime library (csrc/ -> libtpurt.so).
+"""ctypes bindings for the native runtime library (csrc/ -> librtnative.so).
 
 The native library carries the framework's host-side hot paths — currently
 the binned-SAH BVH builder (the role Embree plays for the reference,
@@ -24,7 +24,7 @@ import numpy as np
 log = logging.getLogger("tpu_raytracing")
 
 _CSRC = Path(__file__).resolve().parent.parent / "csrc"
-_LIB_PATH = _CSRC / "libtpurt.so"
+_LIB_PATH = _CSRC / "librtnative.so"
 _ABI_VERSION = 2
 
 _lib = None

@@ -1,6 +1,6 @@
 """Batched BSDF evaluation/sampling in the local shading frame (device).
 
-TPU-native counterpart of raytracing-cpu/src/materials.rs: the same BSDF set
+Batched counterpart of raytracing-cpu/src/materials.rs: the same BSDF set
 (diffuse, smooth/rough dielectric + conductor, coated-diffuse layered in
 layered.py) restructured from enum dispatch into masked SIMD evaluation over
 the whole ray batch — every kind present in the scene is evaluated on all
@@ -372,7 +372,7 @@ def smooth_conductor_sample(eta3, kappa3, wo) -> BsdfSample:
     # cos <= 0 means the lane hit the conductor from INSIDE (a grazing
     # self-reintersection artifact on spheres); the reference's F/wo.z
     # would emit a huge NEGATIVE weight there (materials.rs:486-489 has
-    # no sign guard), which explodes on the TPU backend where ULP-level
+    # no sign guard), which explodes on any backend where ULP-level
     # geometry flips whole grazing bands. Killing the path is the
     # physical behavior; divergence recorded in PARITY.md.
     return BsdfSample(

@@ -4,16 +4,16 @@ Each material kind present in the scene (static, from SceneMeta) is evaluated
 on the full batch and per-lane kinds select the result — predication instead
 of the reference CPU's enum match / OptiX's SBT program selection.
 
-Exception: the stochastic layered BSDF (CoatedDiffuse) is ~100x the vector
-work of every other kind (8 samples x 8 depth random walk, layered.py), so
-paying it on every lane just to mask the result dominated device time
-(round-2 profile: ~50%). The MATERIAL-PARTITIONED path sorts lanes so
-coated ones are contiguous, then a while_loop runs the walk on only
-ceil(n_coated / TILE) fixed-shape tiles — cost proportional to the actual
-coated+active fraction, with static shapes throughout (the SBT-dispatch
-role of the OptiX backend, SURVEY.md §2.3, recast as a compacted tile
-queue). Results merge back through the same per-lane kind masks, so the
-predicated and partitioned paths agree (TPU_RT_MAT_PART=0/1 A/B knob).
+Exception: the stochastic layered BSDF (CoatedDiffuse) is ~100x the vector work
+of every other kind (8 samples x 8 depth random walk, layered.py), so paying it
+on every lane just to mask the result can dominate device time. The
+MATERIAL-PARTITIONED path sorts lanes so coated ones are contiguous, then a
+while_loop runs the walk on only ceil(n_coated / TILE) fixed-shape tiles — cost
+proportional to the actual coated+active fraction, with static shapes
+throughout (the SBT-dispatch role of the OptiX backend, SURVEY.md §2.3, recast
+as a compacted tile queue). Results merge back through the same per-lane kind
+masks, so the predicated and partitioned paths agree (TPU_RT_MAT_PART=0/1 A/B
+knob).
 
 Every bsdf_sample call consumes exactly 3 sampler dimensions regardless of
 the lane's material so streams stay aligned across the batch; the layered
@@ -39,24 +39,16 @@ MAT_TILE = int(_os.environ.get("TPU_RT_MAT_TILE", "4096"))
 
 
 def _mat_partition(B_: int) -> bool:
-    """Partitioned layered dispatch: default on TPU.
+    """Partitioned layered dispatch: off unless TPU_RT_MAT_PART=1.
 
-    auto depends ONLY on the backend (not the batch size) so a TPU render
-    takes the same numerical path at every pixel-chunk size — the
-    cross-chunking determinism invariant. Tiles are fixed-shape
-    (MAT_TILE) with padding, so small batches just waste part of one
-    tile. The partitioned walk differs from the predicated one by
-    shape-dependent XLA fusion ULPs (tests/test_mat_partition.py), which
-    is why it must not toggle within a backend."""
-    mode = _os.environ.get("TPU_RT_MAT_PART", "auto")
-    if mode == "0":
-        return False
-    if mode == "1":
-        return True
-    try:
-        return jax.default_backend() == "tpu"
-    except Exception:
-        return False
+    The choice never depends on the batch size, so a render takes the same
+    numerical path at every pixel-chunk size — the cross-chunking
+    determinism invariant. Tiles are fixed-shape (MAT_TILE) with padding,
+    so small batches just waste part of one tile. The partitioned walk
+    differs from the predicated one by shape-dependent XLA fusion ULPs
+    (tests/test_mat_partition.py). Whether it pays on a GPU is not
+    measured yet."""
+    return _os.environ.get("TPU_RT_MAT_PART", "0") == "1"
 
 
 def _coated_order(kind, active):
@@ -119,7 +111,7 @@ def _layered_eval_partitioned(params: B.BsdfParams, wo, wi, active):
         ],
         axis=1,
     )[order]
-    top_kind = params.top_kind[order]  # int domain: no f32 bitcast on TPU
+    top_kind = params.top_kind[order]  # int domain: no f32 bitcast
     packf = _pad_tile(packf, T)
     top_kind = _pad_tile(top_kind, T)
     Bp = packf.shape[0]

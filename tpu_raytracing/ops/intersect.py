@@ -26,7 +26,7 @@ def ray_aabb(origin, inv_dir, bb_min, bb_max):
 # seam-inclusive barycentric bound: adjacent triangles' Moller-Trumbore
 # tests use different edge vectors, so a ray crossing their SHARED edge can
 # be rejected by both under FP rounding ("falls through the seam") — which
-# side of zero u/v lands on is backend-dependent (TPU FMA contraction sent
+# side of zero u/v lands on is backend-dependent (FMA contraction can send
 # whole reflected beams through the cornell ceiling's diagonal seam).
 # Expanding the bounds by 1e-5 makes seam hits double-claimed instead of
 # dropped; for closed meshes the equal-t tie is resolved like any other

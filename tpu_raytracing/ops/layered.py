@@ -1,6 +1,6 @@
 """Stochastic layered BSDF (CoatedDiffuse) — batched, masked, fixed-trip.
 
-TPU-native restructuring of the reference's LayeredBsdf
+Batched restructuring of the reference's LayeredBsdf
 (raytracing-cpu/src/materials.rs:171-335 eval, :540-666 sample; PBRT 4ed 14.3):
 a dielectric coat (smooth or rough per lane) over a diffuse base with an
 optional homogeneous scattering medium between (HG phase, g = 0). The

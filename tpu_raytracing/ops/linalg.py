@@ -23,13 +23,12 @@ def normalize(a, eps: float = 0.0):
 
 
 # The 4x4 applies below are spelled as explicit f32 mul/adds, NOT
-# einsum/matmul: a dot_general on TPU defaults to bf16 multiplication,
-# which silently cost ~3 digits on every object-space ray transform —
-# enough to move a reflected ray's origin ~1e-3 INSIDE an analytic
-# sphere and flip whole grazing bands to self-reintersections (the
-# round-3 specular zero-pixel bug). Length-3 contractions belong on the
-# VPU as elementwise math anyway; never reintroduce dot_general here
-# without precision=HIGHEST.
+# einsum/matmul: a float32 dot_general may run at reduced precision
+# (TF32 on a GPU keeps ~3 decimal digits), enough to move a reflected
+# ray's origin ~1e-3 INSIDE an analytic sphere and flip whole grazing
+# bands to self-reintersections. Length-3 contractions are elementwise
+# math anyway; never reintroduce dot_general here without
+# precision=HIGHEST (tests/test_backend.py checks the beauty jaxpr).
 
 def _mat3_apply(m, v, transposed: bool = False):
     ix = (lambda i, j: (j, i)) if transposed else (lambda i, j: (i, j))

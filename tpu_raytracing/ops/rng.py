@@ -1,6 +1,6 @@
 """Counter-based deterministic RNG + sampling distributions (device side).
 
-TPU-native replacement for the reference's per-(pixel,sample) PCG32 streams
+Replacement for the reference's per-(pixel,sample) PCG32 streams
 (raytracing-cpu/src/sample.rs:69-87): instead of seeding a stateful generator,
 every draw is a pure hash of (seed, pixel, sample_index, dimension). This is
 natively parallel, needs no state carried between kernels, and makes renders

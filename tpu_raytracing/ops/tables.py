@@ -1,24 +1,20 @@
 """Tiny-table row fetch: broadcast select-chain instead of a row gather.
 
-Per-lane row gathers on TPU issue one DMA descriptor per ROW; the HEAD
-cbbunny profile (docs/PERF_LOG.md round 3) measured the (7,80) material
-row gather at ~28 GB/s — 1.5 ms per bounce for 42 MB of output. For a
-table with a handful of static rows, a where-chain over broadcast rows
-fuses into one elementwise loop and runs at vector-store bandwidth.
+For a table with a handful of static rows, a where-chain over broadcast
+rows fuses into one elementwise loop with no gather at all.
 
 Bit-exact by construction: every output row is the original row's bits
 moved by selects (no arithmetic), and the index is clamped exactly like
 XLA's gather semantics. Works for any dtype and trailing shape.
 
 Counterpart of the reference's SBT-style direct struct indexing
-(kernels/pathtracer.cu material/light lookups), which is free on a
-scalar machine and a DMA bottleneck on a vector one.
+(kernels/pathtracer.cu material/light lookups).
 
-Default ON for TPU only: restructuring the fused shading loops can make
-XLA:CPU's FMA contraction chunk-shape-dependent at the last ULP (see
-the quad-atlas entry in docs/PERF_LOG.md), and the CPU backend keeps a
-strict bit-exact chunk-invariance contract. TPU_RT_SELECT_ROWS forces:
-0 disables, N>0 sets the row-count cutoff on any backend.
+Off unless TPU_RT_SELECT_ROWS=N>0 sets a row-count cutoff: restructuring
+the fused shading loops can make XLA:CPU's FMA contraction chunk-shape-
+dependent at the last ULP, and the CPU backend keeps a strict bit-exact
+chunk-invariance contract. On a GPU a row gather is a plain load, and
+whether the select-chain pays there is not measured yet.
 """
 from __future__ import annotations
 
@@ -27,17 +23,8 @@ import os
 import jax
 import jax.numpy as jnp
 
-_DEFAULT_LIMIT = 16
-
-
 def _limit() -> int:
-    env = os.environ.get("TPU_RT_SELECT_ROWS")
-    if env is not None:
-        return int(env)
-    try:
-        return _DEFAULT_LIMIT if jax.default_backend() == "tpu" else 0
-    except Exception:
-        return 0
+    return int(os.environ.get("TPU_RT_SELECT_ROWS", "0"))
 
 
 def select_rows(table: jax.Array, idx: jax.Array) -> jax.Array:

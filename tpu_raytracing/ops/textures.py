@@ -1,11 +1,11 @@
 """Device texture evaluation over the flattened texture tables.
 
-TPU-native counterpart of the CPU texture sampler
+Batched counterpart of the CPU texture sampler
 (raytracing-cpu/src/texture.rs) and the GPU one-level-of-indirection scheme
 (csrc/kernels/texture.hpp:86-95): Scale/Mix textures reference *leaf*
 textures, so evaluation is two fixed passes instead of recursion. Image
-sampling is gather-based over the flat mip atlas (no hardware samplers on
-TPU): wrap math from texture.rs:44-69, point/bilinear taps from
+sampling is gather-based over the flat mip atlas (no hardware samplers):
+wrap math from texture.rs:44-69, point/bilinear taps from
 texture.rs:235-272, trilinear = lerp of two bilinear mip taps with the mip
 level chosen from uv-footprint derivatives (texture.rs:274-356). Checker
 textures use the reference's erf-based analytic antialiasing

@@ -1,18 +1,24 @@
 """Multi-chip sharded rendering over a (tiles, spp) device mesh.
 
-TPU-native replacement for the reference's two parallel mechanisms
-(SURVEY.md §2.7): the CPU backend's mutex tile work-queue
+Replacement for the reference's two parallel mechanisms (SURVEY.md §2.7):
+the CPU backend's mutex tile work-queue
 (raytracing-cpu/src/lib.rs:481-504,705-805) becomes data parallelism over a
 ``tiles`` mesh axis (deterministic tile -> device assignment instead of work
 stealing), and high-spp renders additionally shard the sample loop over an
-``spp`` axis whose partial sums are combined with an ICI all-reduce
-(``jax.lax.psum``).
+``spp`` axis whose partial sums are combined with an all-reduce
+(``jax.lax.psum``; NCCL between GPUs). The mesh is a plain reshape of the
+device list: on a host whose cards are joined all to all (NVLink), any
+device order serves equally.
 
 Determinism contract: RNG streams are keyed by (pixel, sample), never by
 worker (ops/rng.py), so images are bit-identical for any ``tiles`` sharding
 — the same property the reference guarantees across thread counts
-(visual-testing/README.md:103). Sharding ``spp`` changes only the floating-
-point summation order of per-sample radiance.
+(visual-testing/README.md:103). On GPUs it holds at equal per-device
+width: XLA:GPU compiles other fusions for other array lengths, so a tile
+sharding differs from one card in the last bits of some pixels and in a
+few diverged paths, and agrees with it statistically (chip_smoke.py
+--four). Sharding ``spp`` changes only the floating-point summation order
+of per-sample radiance.
 """
 from __future__ import annotations
 
@@ -25,10 +31,7 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
-try:
-    from jax import shard_map
-except ImportError:  # older jax
-    from jax.experimental.shard_map import shard_map
+from jax import shard_map
 
 from ..device import DeviceScene, compile_scene
 from ..integrator.render import StaticSettings, trace_radiance
@@ -81,9 +84,8 @@ def make_sharded_step(
     # closure: closed-over arrays become XLA constants, which the compiler
     # folds/fuses differently from runtime buffers — a measured ~1-ULP
     # per-pixel divergence vs the single-device drivers (which pass ds as a
-    # traced jit argument, render.py:759). scripts/probe_dsarg_exact.py is
-    # the repro; keeping every driver on the argument convention is what
-    # makes "bit-identical for any tile sharding" hold.
+    # traced jit argument). Keeping every driver on the argument
+    # convention is what makes "bit-identical for any tile sharding" hold.
     def shard_fn(ds_, px, py, active):
         spp_rank = jax.lax.axis_index(SPP_AXIS)
 
@@ -218,8 +220,8 @@ def make_sharded_accum_step(
     jitted = jax.jit(mapped)
     ds_repl = jax.device_put(ds, NamedSharding(mesh, P()))
     step = lambda s0, px, py, active: jitted(ds_repl, s0, px, py, active)  # noqa: E731
-    # introspection handles (scripts/multichip_scaling.py lowers the
-    # jitted fn directly to audit the compiled HLO's collective census)
+    # introspection handles: lower the jitted fn directly to audit the
+    # compiled HLO's collectives
     step.jitted = jitted
     step.ds_repl = ds_repl
     return step

@@ -16,8 +16,8 @@ from typing import Callable, List
 
 import numpy as np
 
-from ..geometry import Mesh, Sphere, TriangleMesh, load_ply, v3, v4
-from ..lights import DirectionLight, EnvironmentLight, TextureMapping
+from ..geometry import Mesh, Sphere, Transform, TriangleMesh, load_ply, v3, v4
+from ..lights import DirectionLight, EnvironmentLight, PointLight, TextureMapping
 from ..materials import (
     CheckerTexture, CoatedDiffuse, Diffuse, FilterMode, Image, ImageTexture,
     RoughConductor, RoughDielectric, SmoothConductor, SmoothDielectric,
@@ -26,7 +26,7 @@ from ..materials import (
 from ..sampling import Stratified
 from ..settings import AovFlags, RaytracerSettings
 from .camera import Camera
-from .scene import Scene, SceneBuilder
+from .scene import BasicPrimitive, Scene, SceneBuilder, TransformPrimitive
 
 F = np.float32
 _ASSETS = Path(__file__).parent / "assets"
@@ -231,6 +231,63 @@ def cornell_box() -> SceneBuilder:
     )
     sb.add_point_light(v3(0, 0, top - 0.1), v3(1000, 1000, 1000))
     return sb
+
+
+def grid_mesh(n: int = 4, size: float = 1.0) -> Mesh:
+    """Tessellated square on z=0: 2*n*n tris."""
+    xs = np.linspace(-size / 2, size / 2, n + 1)
+    vx, vy = np.meshgrid(xs, xs)
+    verts = np.stack([vx.ravel(), vy.ravel(), np.zeros(vx.size)], axis=1)
+    tris = []
+    for j in range(n):
+        for i in range(n):
+            a = j * (n + 1) + i
+            b = a + 1
+            c = a + (n + 1)
+            d = c + 1
+            tris += [[a, b, d], [a, d, c]]
+    normals = np.tile(np.array([[0.0, 0.0, 1.0]]), (verts.shape[0], 1))
+    uvs = (verts[:, :2] / size) + 0.5
+    return Mesh(vertices=verts, tris=np.asarray(tris), normals=normals, uvs=uvs)
+
+
+GRID_PAIR_TRANSFORMS = (
+    Transform.translate(np.array([-0.8, 0.0, -3.0])),
+    Transform.rotate(0.7, np.array([0.0, 1.0, 0.0])).compose(
+        Transform.translate(np.array([0.9, 0.2, -3.5]))
+    ),
+)
+
+
+def grid_pair_scene(shared: bool = True) -> Scene:
+    """Two placed copies of one grid mesh. shared=True reaches ONE
+    BasicPrimitive through two transforms, which compile_scene builds as
+    a shared object-space BLAS with two instances; shared=False bakes both
+    copies into world space (the reference image for instancing)."""
+    sb = SceneBuilder()
+    white = sb.add_constant_texture(v4(1, 1, 1, 1))
+    mat = sb.add_material(Diffuse(albedo=white))
+    mesh = grid_mesh()
+    if shared:
+        basic = sb.add_primitive(
+            BasicPrimitive(shape=TriangleMesh(mesh), material=mat,
+                           area_light=None)
+        )
+        for t in GRID_PAIR_TRANSFORMS:
+            sb.add_root_child(
+                sb.add_primitive(TransformPrimitive(primitive=basic, transform=t))
+            )
+    else:
+        for t in GRID_PAIR_TRANSFORMS:
+            sb.add_shape_with_transform(TriangleMesh(mesh), mat, t)
+    sb.add_light(PointLight(position=v3(0, 2, 0), intensity=v3(20, 20, 20)))
+    sb.add_camera(
+        Camera.lookat_camera_perspective(
+            v3(0, 0, 0), v3(0, 0, -3), v3(0, 1, 0), False,
+            np.deg2rad(50.0), 160, 120,
+        )
+    )
+    return sb.build()
 
 
 def dielectric_scene() -> Scene:

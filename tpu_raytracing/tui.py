@@ -15,6 +15,8 @@ import curses
 from dataclasses import dataclass
 from typing import Callable, List, Optional
 
+from .backend import BACKENDS
+
 AOV_GROUPS = ["n", "a", "u", "m"]  # normals, albedo, uv, mip level
 AOV_LABELS = {"n": "normals", "a": "albedo", "u": "uv", "m": "mip"}
 
@@ -122,7 +124,7 @@ def run(args):
         _Field("Backend", lambda: state["backend"],
                help="jax = platform default",
                cycle=lambda d: state.update(
-                   backend=_cycle_list(["jax", "cpu", "tpu"], state["backend"], d))),
+                   backend=_cycle_list(list(BACKENDS), state["backend"], d))),
         _Field("Sampler", lambda: state["sampler"],
                help="stratified derives strata = ceil(sqrt(spp))",
                cycle=lambda d: state.update(

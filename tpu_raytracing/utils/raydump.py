@@ -3,9 +3,8 @@
 TPU_RT_DUMP_RAYS=1 makes every intersect_scene call record its ray batch
 (origin, direction, t range, active mask, early_exit kind) through an
 ordered io_callback — honest per-bounce workloads straight from the real
-integrator, used by scripts/probe_reorg.py to evaluate traversal
-organizations offline (docs/PERF_LOG.md round 4). Zero overhead when the
-knob is off (the callback is never staged).
+integrator, for evaluating traversal organizations offline. Zero overhead
+when the knob is off (the callback is never staged).
 """
 from __future__ import annotations
 

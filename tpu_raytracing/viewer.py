@@ -3,7 +3,7 @@
 The reference viewer runs the CPU backend synchronously on a scene, streams
 radiance into a storage buffer, tonemaps in a WGSL compute pass with
 exposure/gamma push constants, and offers imgui controls (spp, depth,
-debug normals, pixel inspect) (render_output_view.rs:13-97). The TPU-native
+debug normals, pixel inspect) (render_output_view.rs:13-97). This
 equivalent keeps the same capabilities on a matplotlib canvas:
 
 - renders through the same device renderer as the CLI
@@ -27,6 +27,8 @@ import os
 import sys
 
 import numpy as np
+
+from .backend import BACKENDS, select_platform
 
 log = logging.getLogger("tpu_raytracing")
 
@@ -274,12 +276,10 @@ def main(argv=None) -> int:
     g.add_argument("--scene-name")
     p.add_argument("-s", "--spp", type=int, default=8)
     p.add_argument("-d", "--ray-depth", type=int, default=4)
-    p.add_argument("--backend", choices=["jax", "cpu", "tpu"], default="jax")
+    p.add_argument("--backend", choices=list(BACKENDS), default="jax")
     args = p.parse_args(argv)
 
-    from .cli import _select_platform
-
-    _select_platform(args.backend)
+    select_platform(args.backend)
 
     from .settings import RaytracerSettings
 

@@ -1,4 +1,4 @@
-"""rttest: snapshot + performance regression harness for the TPU renderer.
+"""rttest: snapshot + performance regression harness for the renderer.
 
 Capability parity with the reference harness (visual-testing/src/rttest/):
 renders every scene in tests/tests.toml through the real CLI, compares EXR

@@ -18,8 +18,8 @@ from typing import List, Optional
 from .diff import compare_images
 from .test_spec import TestSpec
 
-# remote-TPU first compiles can be minutes; the layered coated_diffuse
-# bunny takes >20 min single-process on the CPU backend
+# the layered coated_diffuse bunny takes >20 min single-process on the CPU
+# backend
 TIMEOUT_SECONDS = int(os.environ.get("RTTEST_TIMEOUT", "2400"))
 
 
@@ -144,7 +144,7 @@ def run_single_test(
             output_path=str(output_path), reference_path=str(reference_path),
         )
     if stat_gate:
-        # cross-backend statistical gate (TPU vs CPU-blessed references):
+        # cross-backend statistical gate (GPU vs CPU-blessed references):
         # beauty gated on tonemapped image-mean agreement, AOVs on a
         # small MSE bound; specular-transport scenes carry a larger
         # per-scene bound in tests.toml (delta chains make whole paths

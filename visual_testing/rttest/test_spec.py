@@ -29,7 +29,7 @@ class TestSettings:
     aov: List[str] = field(default_factory=list)
     no_beauty: bool = False
     # per-scene cross-backend statistical tolerance override (tonemapped
-    # rel-mean bound for the tpu gate); None = the gate default
+    # rel-mean bound for the gpu gate); None = the gate default
     stat_rel_mean: Optional[float] = None
     # per-scene spatial (block-mean) bound; None = BLOCK_TOL_FACTOR x the
     # effective rel-mean tolerance
